@@ -1,15 +1,14 @@
 """Sub-stage attribution for the two dominant pipeline stages.
 
-Round-4 instrumentation (VERDICT items 1-2): splits
+Splits
   - estimate_transition_prob (20k x 2k, nn=3500, frac=0.5, randomized)
     into embedding-kNN / RNG sampling / neighbor gather / displacement
     transform / main corr kernel / randomized corr kernel
   - the 50k balanced kNN into candidate sort / f64 rescore /
     reorder+truncate / hub order / balance scan
-and prints a JSON sub-table.  A D=50 MXU distance-matmul probe runs
-before and after each section: identical cached programs swing 5-15x on
-this shared device, so a run is only "clean" when the probe holds its
-baseline time.
+and prints a JSON sub-table.  A D=50 distance-matmul probe runs before
+and after each section, so a section measured while the device was
+shared shows up as a slow probe.
 """
 import json
 import os
@@ -21,27 +20,18 @@ import numpy as np
 os.environ.setdefault("VTPU_BENCH", "1")
 
 
-from bench_common import mxu_probe, sync  # noqa: E402
+import jax  # noqa: E402
+
+from bench_common import matmul_probe  # noqa: E402
 
 
 def timed(name, fn, out, n=1, warm=True):
     if warm and os.environ.get("VTPU_ATTR_WARM", "1") == "1":
-        r = fn()                      # compile/program-load outside timing
-        if hasattr(r, "block_until_ready"):
-            sync(r)
-        elif isinstance(r, tuple):
-            for x in r:
-                if hasattr(x, "block_until_ready"):
-                    sync(x)
+        jax.block_until_ready(fn())   # compile outside timing
     t0 = time.perf_counter()
     for _ in range(n):
         r = fn()
-    if hasattr(r, "block_until_ready"):
-        sync(r)
-    elif isinstance(r, tuple):
-        for x in r:
-            if hasattr(x, "block_until_ready"):
-                sync(x)
+    jax.block_until_ready(r)
     dt = (time.perf_counter() - t0) / n
     out[name] = round(dt, 3)
     print(f"#   {name}: {dt:.3f}s", flush=True)
@@ -66,7 +56,7 @@ def attr_transition(n=20000, g=2000, nn=3500, frac=0.5):
     nn_k = min(nn + 1, n - 1)
 
     print("# transition_prob attribution", flush=True)
-    p0 = mxu_probe()
+    p0 = matmul_probe()
     print(f"#   probe_before: {p0:.2f}ms", flush=True)
 
     idx_dev = timed("embedding_knn", lambda: kd.knn_search_dev(
@@ -96,7 +86,7 @@ def attr_transition(n=20000, g=2000, nn=3500, frac=0.5):
         Sx, d_main, neigh_ixs, "sqrt", 1e-10), out)
     timed("corr_kernel_rndm", lambda: col_delta_cor_partial_compact_dev(
         Sx, d_rndm, neigh_ixs, "sqrt", 1e-10), out)
-    p1 = mxu_probe()
+    p1 = matmul_probe()
     print(f"#   probe_after: {p1:.2f}ms", flush=True)
     out["probe_ms"] = [round(p0, 2), round(p1, 2)]
     out["sum"] = round(sum(v for k, v in out.items()
@@ -118,7 +108,7 @@ def attr_knn50k(n=50000, d=50, k=500, sight=3000, maxl=1500):
     k2, blk, use_sort = _candidate_plan(n, kk, 512)
 
     print(f"# knn50k attribution (n={n}, sight={sight}, k={k})", flush=True)
-    p0 = mxu_probe()
+    p0 = matmul_probe()
     print(f"#   probe_before: {p0:.2f}ms", flush=True)
 
     cand = timed("candidate_sort", lambda: _knn_search_impl(
@@ -133,7 +123,7 @@ def attr_knn50k(n=50000, d=50, k=500, sight=3000, maxl=1500):
     cst = jnp.zeros((n,), jnp.int32)
     timed("balance_scan", lambda: kd._balance_scan_impl(
         ii, dist, lsi, cst, maxl, k, False), out)
-    p1 = mxu_probe()
+    p1 = matmul_probe()
     print(f"#   probe_after: {p1:.2f}ms", flush=True)
     out["probe_ms"] = [round(p0, 2), round(p1, 2)]
     out["sum"] = round(sum(v for kx, v in out.items()

@@ -1,12 +1,11 @@
 """50k-cell balanced-kNN benchmark (the reference's b_sight=3000/k=500
 operating point scaled to 50k cells), fully device-resident.
 
-Round-5 measurement policy (declared up front): run 0 is ALWAYS a warmup
-(program loads from the persistent compile cache) and never enters the
-statistic; the headline is the TRUE median (statistics.median) of the
-clean measured runs (default 6 reps -> 1 warmup + 5 measured) with the
-stage split from the run closest to the median; min/max spread recorded.
-Writes the "knn_50k_sight3000_onechip" section of BENCH_scale.json.
+Measurement policy: run 0 is always a warmup (compilation) and never
+enters the statistic; the headline is the median of the clean measured
+runs (default 6 reps -> 1 warmup + 5 measured) with the stage split from
+the run closest to the median; min/max spread recorded.  Prints one JSON
+line.
 """
 import json
 import os
@@ -20,7 +19,7 @@ REPS = int(os.environ.get("VTPU_BENCH_KNN_REPS", 6))
 PROBE_MS = float(os.environ.get("VTPU_BENCH_PROBE_MS", 8.0))
 
 
-from bench_common import mxu_probe, sync  # noqa: E402
+from bench_common import matmul_probe  # noqa: E402
 
 
 def run_once(x, x64):
@@ -31,11 +30,9 @@ def run_once(x, x64):
     stages = {}
 
     def timed(name, fn):
+        import jax
         t0 = time.perf_counter()
-        r = fn()
-        for v in (r if isinstance(r, tuple) else (r,)):
-            if hasattr(v, "block_until_ready"):
-                sync(v)
+        r = jax.block_until_ready(fn())
         stages[name] = round(time.perf_counter() - t0, 2)
         return r
 
@@ -67,9 +64,9 @@ def main():
 
     runs = []
     for rep in range(REPS):
-        p0 = mxu_probe()
+        p0 = matmul_probe()
         total, stages = run_once(x, x64)
-        p1 = mxu_probe()
+        p1 = matmul_probe()
         clean = max(p0, p1) <= PROBE_MS
         runs.append({"total": total, "stages": stages,
                      "probe_ms": [round(p0, 2), round(p1, 2)],
@@ -99,8 +96,8 @@ def main():
         "stages": med["stages"],
         "runs": runs,
         "device": jax.devices()[0].device_kind,
-        "note": ("Device-resident end-to-end; run 0 includes program "
-                 "load from the persistent compile cache.  The balance "
+        "note": ("Device-resident end-to-end; run 0 includes "
+                 "compilation.  The balance "
                  "scan is the speculative batched while_loop "
                  "(ops/knn_device.py), bit-equal to the host greedy "
                  "loop."),
@@ -109,23 +106,6 @@ def main():
                       "bit-exact)"),
     }
     print(json.dumps(rec))
-    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                        "BENCH_scale.json")
-    merged = {}
-    if os.path.exists(path):
-        try:
-            with open(path) as f:
-                merged = json.load(f)
-        except Exception:
-            merged = {}
-    prev = merged.get("knn_50k_sight3000_onechip")
-    if n_clean or not isinstance(prev, dict) or prev.get("value") is None:
-        merged["knn_50k_sight3000_onechip"] = rec
-    else:
-        # a fully-contended session must not clobber the clean headline
-        merged["knn_50k_last_contended_session"] = rec
-    with open(path, "w") as f:
-        json.dump(merged, f, indent=1)
 
 
 if __name__ == "__main__":

@@ -59,7 +59,7 @@ SECTIONS = [
                                "velocyto_tpu.parallel.counts",
                                "velocyto_tpu.parallel.feeders"],
      "Device meshes, count merging, and feeder orchestration "
-     "(TPU-native; no reference counterpart)."),
+     "(no reference counterpart)."),
     ("Native runtime", ["velocyto_tpu.native"],
      "The C++ host runtime: BGZF/BAM decode, tag sort + .vtx index, "
      "record-boundary scan, MT19937 replay, balanced-kNN loop."),

@@ -14,8 +14,7 @@
 # or open it as a notebook (VS Code / jupytext understand `# %%` cells).
 #
 # Every step is the same method call, in the same order, as the
-# reference tutorial; timings in comments are from the repo's TPU bench
-# sessions at the 20k-cell operating point (BENCH_scale.json).
+# reference tutorial.
 
 # %%
 import os
@@ -120,7 +119,7 @@ vlm.normalize("both", size=True, log=True)
 # %% [markdown]
 # ## Preparation for the gamma fit
 # (reference analysis.rst "Preparation for gamma fit": PCA + balanced
-# kNN smoothing.  On TPU the whole chain from here through the velocity
+# kNN smoothing.  On the device the whole chain from here through the velocity
 # extrapolation is device-resident: the (genes, cells) state never
 # crosses the host link between stages.)
 

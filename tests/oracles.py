@@ -2,7 +2,7 @@
 
 These are straight transliterations of the *mathematical definitions*
 extracted from the reference (see docstrings in velocyto_tpu.ops.*); they
-are deliberately slow and simple so the TPU kernels can be validated
+are deliberately slow and simple so the device kernels can be validated
 against them.
 """
 import numpy as np
@@ -25,11 +25,14 @@ def transform_delta(delta, transform, psc, partial):
     raise ValueError(transform)
 
 
-def col_delta_cor_dense(emat, dmat, transform="linear", psc=0.0):
-    """For each cell c: corr(transform(e[:,i]-e[:,c]), d[:,c])."""
+def col_delta_cor_dense(emat, dmat, transform="linear", psc=0.0,
+                        centres=None):
+    """For each cell c: corr(transform(e[:,i]-e[:,c]), d[:,c]).  With
+    `centres`, only those rows (in that order)."""
     g, n = emat.shape
-    out = np.zeros((n, n))
-    for c in range(n):
+    centres = range(n) if centres is None else centres
+    out = np.zeros((len(centres), n))
+    for r, c in enumerate(centres):
         a = transform_delta(emat - emat[:, c][:, None], transform, psc,
                             partial=False)
         a_c = a - a.mean(0)[None, :]
@@ -38,15 +41,16 @@ def col_delta_cor_dense(emat, dmat, transform="linear", psc=0.0):
         num = a_c.T @ b_c
         den = np.sqrt((a_c ** 2).sum(0)) * np.sqrt((b_c ** 2).sum())
         with np.errstate(divide="ignore", invalid="ignore"):
-            out[c, :] = num / den
+            out[r, :] = num / den
     return out
 
 
 def col_delta_cor_partial(emat, dmat, ixs, transform="linear", psc=0.0):
-    g, n = emat.shape
+    """Row c: corr(transform(e[:,ixs[c]]-e[:,c]), d[:,c]) for the first
+    len(ixs) cells (ixs may hold the rows of a prefix of the cells)."""
     nn = ixs.shape[1]
-    out = np.zeros((n, nn))
-    for c in range(n):
+    out = np.zeros((ixs.shape[0], nn))
+    for c in range(ixs.shape[0]):
         cols = ixs[c]
         a = transform_delta(emat[:, cols] - emat[:, c][:, None], transform,
                             psc, partial=True)

@@ -38,15 +38,20 @@ def test_partial_matches_oracle(rng, transform, psc):
 
 @pytest.mark.parametrize("transform,psc", [("sqrt", 1e-10), ("log10", 1.0),
                                            ("log10", 1e-10)])
-def test_dense_pallas_pad_masking(rng, transform, psc):
-    """The Pallas kernel masks zero-padded gene rows in-kernel, so the
-    single Pallas path is exact for transforms where transform(0) != 0
-    (sqrt/log10 with psc > 0).  Runs in interpret mode off-TPU."""
-    g, n = 37, 29   # deliberately far from the tile sizes: heavy padding
+def test_dense_xla_padded_centre_blocks(rng, transform, psc):
+    """The dense XLA path pads the centre cells to a multiple of its
+    block; padded centres must not leak into real rows, including for
+    transforms where transform(0) != 0 (sqrt/log10 with psc > 0)."""
+    from velocyto_tpu.ops.coldeltacor import (_TRANSFORMS,
+                                              _col_delta_cor_dense_xla)
+    g, n, block = 37, 29, 8          # 29 centres -> 3 padded in 4 blocks
     e = rng.rand(g, n).astype(np.float64) * 10
     d = rng.randn(g, n).astype(np.float64)
     expected = oracle_dense(e, d, transform, psc)
-    got = col_delta_cor(e, d, transform, psc, use_pallas=True)
+    got = np.asarray(_col_delta_cor_dense_xla(
+        e.astype(np.float32), d.astype(np.float32), _TRANSFORMS[transform],
+        psc, block))
+    assert got.shape == (n, n)
     mask = ~np.eye(n, dtype=bool)
     np.testing.assert_allclose(got[mask], expected[mask], rtol=2e-3,
                                atol=2e-3)
@@ -76,30 +81,26 @@ def test_partial_sharded_matches_single(rng):
 
 @pytest.mark.parametrize("transform,psc", [("sqrt", 1e-10), ("sqrt", 0.0),
                                            ("log10", 1.0), ("linear", 0.0)])
-def test_partial_via_dense_matches_gather_path(rng, transform, psc):
-    """The dense-select route (used on TPU when the gather source spills
-    VMEM) must reproduce the gather kernel's partial-semantics values,
-    including the |delta| < 1e-16 -> 0 sqrt quirk at sampled entries.
-    Runs the Pallas kernel in interpret mode off-TPU."""
-    from velocyto_tpu.ops.coldeltacor import (_partial_impl,
-                                              _col_delta_cor_dense_pallas,
-                                              _TRANSFORMS)
+def test_partial_equal_columns_match_oracle(rng, transform, psc):
+    """Sampled pairs with exactly equal expression (delta == 0) follow
+    the reference's partial-kernel quirks: |delta| < 1e-16 maps to 0
+    for sqrt, and log10 takes the `>= 0` branch."""
+    from velocyto_tpu.ops.coldeltacor import _partial_impl, _TRANSFORMS
     import jax.numpy as jnp
     g, n, nn = 23, 31, 7
     e = (rng.rand(g, n) * 10).astype(np.float32)
-    # inject exact-equal expression pairs so delta == 0 paths are hit
     e[:, 5] = e[:, 3]
+    e[:, 17] = e[:, 3]
     d = rng.randn(g, n).astype(np.float32)
     ixs = np.stack([rng.choice(n, nn, replace=False) for _ in range(n)])
-    tcode = _TRANSFORMS[transform]
-    gather = np.asarray(_partial_impl(e.T, e.T, d.T,
-                                      jnp.asarray(ixs, jnp.int32),
-                                      tcode, psc))
-    dense = np.asarray(_col_delta_cor_dense_pallas(
-        jnp.asarray(e), jnp.asarray(d), tcode, psc, interpret=True,
-        partial_semantics=True))
-    selected = np.take_along_axis(dense, ixs, axis=1)
-    np.testing.assert_allclose(selected, gather, rtol=2e-3, atol=2e-4)
+    ixs[3, :2] = (5, 17)            # cell 3 samples its two twins
+    ixs[5, 0] = 3
+    got = np.asarray(_partial_impl(e.T, e.T, d.T,
+                                   jnp.asarray(ixs, jnp.int32),
+                                   _TRANSFORMS[transform], psc))
+    expected = oracle_partial(e.astype(np.float64), d.astype(np.float64),
+                              ixs, transform, psc)
+    np.testing.assert_allclose(got, expected, rtol=2e-3, atol=2e-4)
 
 
 @pytest.mark.parametrize("transform,psc", [("sqrt", 1e-10), ("linear", 0.0)])

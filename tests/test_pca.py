@@ -1,5 +1,8 @@
 import numpy as np
-from sklearn.decomposition import PCA as SkPCA
+import pytest
+
+# sklearn is the oracle here, and optional (see tests/test_knn.py)
+SkPCA = pytest.importorskip("sklearn.decomposition").PCA
 
 from velocyto_tpu.ops import PCA
 

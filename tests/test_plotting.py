@@ -1,11 +1,13 @@
 """Smoke tests for the plotting surface (Agg backend): every plot
 method must run without error on a small synthetic state."""
-import matplotlib
+import pytest
+
+# matplotlib is optional (see tests/test_knn.py)
+matplotlib = pytest.importorskip("matplotlib")
 matplotlib.use("Agg")
 
 import matplotlib.pyplot as plt  # noqa: E402
 import numpy as np  # noqa: E402
-import pytest  # noqa: E402
 
 import velocyto_tpu as vt  # noqa: E402
 

@@ -15,7 +15,6 @@ import pickle
 from collections import defaultdict
 from typing import Dict
 
-import h5py
 import numpy as np
 
 
@@ -57,6 +56,7 @@ class DumpWriter:
         os.makedirs(os.path.join(self.outputfolder, "dump"), exist_ok=True)
         path = os.path.join(self.outputfolder, "dump",
                             f"{self.sampleid}.hdf5")
+        import h5py  # optional: only loom/hdf5 I/O needs it
         with h5py.File(path, "a") as f:
             if "info/tr_id" not in f:
                 self._write_info(f, annotations)

@@ -4,7 +4,7 @@ The reference walks a sorted Feature list per read with a monotonic
 cursor (velocyto/indexes.py:63-269).  Here the features are flattened
 into numpy arrays once, and reads are matched in *batches* with
 searchsorted windows + vectorized predicates -- the array-native design
-that the TPU/XLA classification pipeline consumes.
+that a batched (numpy or XLA) classification pipeline consumes.
 
 Semantic equivalences (proven, see notes inline):
   - the reference cursor (indexes.py:101-104,226-229) is a pure

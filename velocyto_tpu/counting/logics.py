@@ -6,7 +6,7 @@ cascades that differ only in the treatment of a few cases
 shared cascade is written once, per-logic outcomes live in a small
 action table, and the whole thing evaluates either per-molecule (API
 parity) or vectorized over a batch of molecules as boolean-array ops --
-the form the TPU/segment-sum counting pipeline consumes.
+the form the batched segment-sum counting pipeline consumes.
 
 Molecule flags (reference logic.py:96-148; OR over transcript models):
   OI   has_onlyintron_model        some TM matched only introns

@@ -76,6 +76,16 @@ def _init_pool_worker(counter_bytes: bytes) -> None:
     _POOL_ENGINE = SoaEngine(pickle.loads(counter_bytes))
 
 
+def _init_spawned_worker(counter_bytes: bytes) -> None:
+    """Initializer of SPAWNED pool workers: pin JAX to the CPU before
+    anything can start a backend (counting does no device work, and a
+    second process on the parent's accelerator would claim most of its
+    memory), then rebuild the engine."""
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    _init_pool_worker(counter_bytes)
+
+
 def _pool_count_owner(bamfiles: List[str], multimap: bool,
                       cell_batch_size: int, owner_spec, track_global: bool,
                       byte_ranges=None):
@@ -198,7 +208,7 @@ def run_markup_pool(counter, bamfiles: List[str], multimap: bool,
         import multiprocessing as mp
         ctx = mp.get_context("spawn")
         with cf.ProcessPoolExecutor(max_workers=n_workers, mp_context=ctx,
-                                    initializer=_init_pool_worker,
+                                    initializer=_init_spawned_worker,
                                     initargs=(payload,)) as pool:
             futs = [pool.submit(_pool_markup_task, bamfiles[fi], multimap,
                                 rng) for fi, rng in tasks]
@@ -256,7 +266,7 @@ def run_owner_pool(counter, bamfiles: List[str], multimap: bool,
     import multiprocessing as mp
     ctx = mp.get_context("spawn")
     with cf.ProcessPoolExecutor(max_workers=len(owners), mp_context=ctx,
-                                initializer=_init_pool_worker,
+                                initializer=_init_spawned_worker,
                                 initargs=(payload,)) as pool:
         futs = [pool.submit(_pool_count_owner, bamfiles, multimap,
                             cell_batch_size, spec, tg(w), br(w))

@@ -2,8 +2,10 @@
 
 The transition-matrix construction keeps the reference's scipy.sparse
 contract for small host-side use; the repeated sparse-vector/matrix
-products of `diffuse` run as a jitted dense scan on TPU when the matrix
-is dense enough to benefit (cells x cells at analysis scale fits HBM).
+products of `diffuse` run as a jitted dense scan on the device (cells x
+cells at analysis scale fits device memory).  Both scans multiply at
+``Precision.HIGHEST``: true float32, never a reduced-precision (TF32 or
+bf16) matrix unit pass.
 """
 from __future__ import annotations
 
@@ -29,12 +31,26 @@ def _l1_normalize_rows(m: sparse.spmatrix) -> sparse.csr_matrix:
 import functools
 
 
+_HIGHEST = jax.lax.Precision.HIGHEST
+
+
 @functools.partial(jax.jit, static_argnames=("n_steps",))
 def _power_steps(x: jax.Array, tr: jax.Array, n_steps: int) -> jax.Array:
+    """x @ tr^n_steps (time_evolution)."""
     def body(carry, _):
-        return carry @ tr, None
+        return jnp.matmul(carry, tr, precision=_HIGHEST), None
     out, _ = jax.lax.scan(body, x, None, length=n_steps)
     return out
+
+
+@functools.partial(jax.jit, static_argnames=("n_steps",))
+def _path_integral(x: jax.Array, tr: jax.Array, n_steps: int) -> jax.Array:
+    """sum over t = 1..n_steps of x @ tr^t (path_integral)."""
+    def body(carry, _):
+        nxt = jnp.matmul(carry, tr, precision=_HIGHEST)
+        return nxt, nxt
+    _, traj = jax.lax.scan(body, x, None, length=n_steps)
+    return jnp.sum(traj, axis=0)
 
 
 class Diffusion:
@@ -97,12 +113,7 @@ class Diffusion:
         x0 = np.asarray(x, dtype=np.float64)
         if mode == "path_integral":
             xt = jnp.asarray(x0 / x0.sum(), dtype=jnp.float32)
-
-            def body(carry, _):
-                nxt = carry @ tr_d
-                return nxt, nxt
-            _, traj = jax.lax.scan(body, xt, None, length=n_steps)
-            return np.asarray(jnp.sum(traj, axis=0))[None, :]
+            return np.asarray(_path_integral(xt, tr_d, n_steps))[None, :]
         if mode == "time_evolution":
             xt = jnp.asarray(x0 / x0.sum(), dtype=jnp.float32)
             out = _power_steps(xt, tr_d, n_steps)

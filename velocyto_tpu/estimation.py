@@ -2,9 +2,9 @@
 
 Thin wrappers exposing the reference function names
 (velocyto/estimation.py:11-170 for colDeltaCor*, :173-389 for fit_slope*)
-on top of the TPU kernels in velocyto_tpu.ops.  ``threads`` arguments are
-accepted for signature compatibility and ignored (parallelism is the
-XLA/TPU schedule, not host threads).
+on top of the device kernels in velocyto_tpu.ops.  ``threads`` arguments
+are accepted for signature compatibility and ignored (parallelism is the
+XLA device schedule, not host threads).
 """
 from __future__ import annotations
 

@@ -3,7 +3,7 @@
 The reference snapshots the whole VelocytoLoom via pickled HDF5
 (velocyto/serialization.py:44-115; reproduced in
 velocyto_tpu.serialization for format parity).  This module is the
-TPU-native alternative (SURVEY.md §5): numpy/JAX arrays - including
+device-native alternative (SURVEY.md §5): numpy/JAX arrays - including
 arrays sharded over a device mesh - checkpoint through orbax, so
 multi-host state saves without gathering to one host, and restore can
 re-shard onto a different mesh.

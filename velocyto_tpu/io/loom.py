@@ -11,7 +11,6 @@ from __future__ import annotations
 import os
 from typing import Any, Dict, Optional
 
-import h5py
 import numpy as np
 
 
@@ -33,6 +32,7 @@ class LoomConnection:
     """Read-mode view of a loom file with loompy-like accessors."""
 
     def __init__(self, path: str) -> None:
+        import h5py  # optional: only loom/hdf5 I/O needs it
         self._f = h5py.File(path, "r")
         self.filename = path
 
@@ -128,6 +128,7 @@ def create(filename: str, layers: Dict[str, np.ndarray],
     if os.path.exists(filename):
         os.remove(filename)
     main = np.asarray(layers[""])
+    import h5py  # optional: only loom/hdf5 I/O needs it
     with h5py.File(filename, "w") as f:
         f.create_dataset("matrix", data=main,
                          chunks=_chunks(main.shape), compression="gzip",

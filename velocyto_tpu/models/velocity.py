@@ -1,4 +1,4 @@
-"""The flagship RNA-velocity model as one fused, jittable TPU program.
+"""The flagship RNA-velocity model as one fused, jittable device program.
 
 This is the whole estimation hot path -- kNN smoothing, steady-state
 gamma fit, velocity extrapolation, neighbor-sampled colDeltaCor and the
@@ -52,7 +52,7 @@ def velocity_step(S_sz: jax.Array, U_sz: jax.Array,
     """
     g, n = S_sz.shape
 
-    # --- kNN smoothing (scatter-to-dense + MXU matmul; one kernel with
+    # --- kNN smoothing (scatter-to-dense + matmul; one kernel with
     #     ops.knn_device._smooth_rows_impl) ------------------------------
     from ..ops.knn_device import _smooth_rows_impl
 
@@ -120,7 +120,7 @@ def make_sharded_velocity_step(mesh: Mesh):
       - gene-major matrices (G, N): genes on the GENES axis, cells on CELLS
         (both model- and data-parallel; XLA inserts psums for the
         cells-axis reductions of the gamma fit and gene-axis reductions of
-        the correlation moments, riding ICI)
+        the correlation moments)
       - per-cell tables (N, K): cells on CELLS
       - per-gene vectors (G,): GENES
     """

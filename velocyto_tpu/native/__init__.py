@@ -1,29 +1,63 @@
 """Loader for the native C++ runtime (libvtpu).
 
 The native library provides the host-side hot paths that are neither
-TPU-friendly nor fast enough in Python:
+device-friendly nor fast enough in Python:
   - BGZF block decompression + BAM record decoding (the reference relies
     on pysam/htslib for this; reference: velocyto/counter.py:217-306)
   - the greedy balanced-kNN loop (reference: velocyto/neighbors.py:11-140)
+  - the MT19937 neighbor-sampling replay of estimate_transition_prob
 
-Built via ``make -C velocyto_tpu/native`` (see Makefile); loaded through
-ctypes.  Every entry point has a pure-Python/numpy fallback, so the
-package works without the native build (slower).
+The library is never shipped prebuilt: the first use in a checkout
+compiles ``vtpu.cpp`` with the Makefile's flags (and again whenever the
+source is newer than the library), then loads it through ctypes.  Every
+entry point has a pure-Python/numpy fallback, so the package still works
+(slower, with a warning) where no C++ toolchain is present.
 """
 from __future__ import annotations
 
 import ctypes
 import os
+import subprocess
+import warnings
 from typing import Optional, Tuple
 
 import numpy as np
 
+_DIR = os.path.dirname(os.path.abspath(__file__))
+_SRC = os.path.join(_DIR, "vtpu.cpp")
 _LIB = None
 _TRIED = False
+BUILT_HERE = False      # whether this process compiled the library
 
 
 def _lib_path() -> str:
-    return os.path.join(os.path.dirname(__file__), "libvtpu.so")
+    return os.path.join(_DIR, "libvtpu.so")
+
+
+def _is_fresh(path: str) -> bool:
+    return (os.path.exists(path)
+            and os.path.getmtime(path) >= os.path.getmtime(_SRC))
+
+
+def _build(path: str) -> None:
+    """Compile the library, safe under concurrent first use: one process
+    at a time builds (an exclusive lock on a file beside the source),
+    into a temporary name in the same directory, and os.replace
+    publishes the finished file atomically.  A process that waited on
+    the lock finds a fresh library and builds nothing."""
+    import fcntl
+    global BUILT_HERE
+    with open(os.path.join(_DIR, ".libvtpu.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if _is_fresh(path):
+            return
+        tmp = path + ".tmp"
+        subprocess.run(["make", "-s", "-C", _DIR,
+                        "LIB=" + os.path.basename(tmp)],
+                       check=True, capture_output=True, text=True,
+                       timeout=300)
+        os.replace(tmp, path)
+        BUILT_HERE = True
 
 
 def _load():
@@ -32,20 +66,16 @@ def _load():
         return _LIB
     _TRIED = True
     path = _lib_path()
-    if not os.path.exists(path):
-        # try to build it on the fly if a toolchain is present
+    if not _is_fresh(path):
         try:
-            import subprocess
-            subprocess.run(["make", "-s", "-C", os.path.dirname(__file__)],
-                           check=True, capture_output=True, timeout=120)
-        except Exception:
-            pass
-    if os.path.exists(path):
-        try:
-            _LIB = ctypes.CDLL(path)
-            _configure(_LIB)
-        except OSError:
-            _LIB = None
+            _build(path)
+        except (OSError, subprocess.SubprocessError) as exc:
+            detail = getattr(exc, "stderr", "") or ""
+            warnings.warn(f"libvtpu build failed, using the Python "
+                          f"fallbacks: {exc} {detail}".strip())
+            return None
+    _LIB = ctypes.CDLL(path)
+    _configure(_LIB)
     return _LIB
 
 

@@ -18,9 +18,9 @@ moment accumulation, which needs only three running sums over genes per
     den = sqrt(S2 - S1^2 / G) * sqrt(sum b^2 - (sum b)^2 / G)
     corr = num / den
 
-so it maps onto TPU as a gene-tiled streaming kernel (Pallas, dense
-variant) and as blocked fused-XLA code (neighbor-sampled variant), with
-no O(G * N) scratch per cell.
+so both variants run as blocked fused-XLA code (dense: blocks of centre
+cells against all candidates; neighbor-sampled: blocks of gathered
+neighbor rows), with no O(G * N) scratch per cell.
 
 Transforms match the reference sign conventions exactly:
   - "linear":  A = delta
@@ -32,20 +32,18 @@ Transforms match the reference sign conventions exactly:
                speedboosted.pyx:195-199), partial maps it to +log10(psc)
                (`tmp >= 0` test, speedboosted.pyx:470-473)
 
-All computation is float32 (TPU native); the reference uses float64.
-Agreement is validated to ~1e-4 relative in tests.
+All computation is float32 with every contraction at
+``Precision.HIGHEST`` (true float32, never TF32); the reference uses
+float64.  Agreement is validated to ~1e-4 relative in tests.
 """
 from __future__ import annotations
 
 import functools
-import os
 from typing import Optional
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 from jax.sharding import Mesh, PartitionSpec as P
 from jax import shard_map
 
@@ -83,133 +81,7 @@ def _corr_from_moments(s1, s2, s3, sb1, sb2, n_genes):
 
 
 # ---------------------------------------------------------------------------
-# Dense (full) variant: Pallas TPU kernel
-# ---------------------------------------------------------------------------
-
-def _dense_kernel(e_i_ref, e_ct_ref, d_ct_ref, out_ref, acc_ref,
-                  *, transform: int, psc: float, tc: int, n_genes: int,
-                  mask_pad: bool, partial_semantics: bool = False):
-    """Grid: (I_tiles, C_tiles, K_gene_tiles); K innermost.
-
-    e_i_ref:  (GT, TI)  gene-tile of candidate-cell columns
-    e_ct_ref: (TC, GT)  gene-tile of center-cell rows (transposed layout:
-                        the last/lane dim must be 128-aligned, so the small
-                        TC axis lives on sublanes and we transpose in-kernel)
-    d_ct_ref: (TC, GT)  gene-tile of displacement rows (transposed)
-    out_ref:  (TC, TI)  correlation output block
-    acc_ref:  (5, TC, TI) scratch accumulators S1,S2,S3 + per-c sb1,sb2
-              (sb moments are broadcast along TI; the slight redundancy
-              keeps everything in one aligned scratch buffer)
-
-    The (center, candidate) pair space is evaluated as one broadcast
-    (GT, TC, TI) tensor per step — vectorizing over center cells measured
-    2.7x faster than a python loop over them (v5e, G=2000 N=3072).
-    """
-    k = pl.program_id(2)
-    nk = pl.num_programs(2)
-
-    @pl.when(k == 0)
-    def _():
-        acc_ref[...] = jnp.zeros_like(acc_ref)
-
-    e_i = e_i_ref[...]                          # (GT, TI)
-    e_c = jnp.transpose(e_ct_ref[...])          # (GT, TC)
-    b = jnp.transpose(d_ct_ref[...])            # (GT, TC)
-    delta = e_i[:, None, :] - e_c[:, :, None]   # (GT, TC, TI)
-    a = _apply_transform(delta, transform, psc,
-                         partial=partial_semantics)
-    if mask_pad:
-        # zero-padded gene rows would contribute transform(0) != 0 to the
-        # moments (sqrt/log10 with psc > 0); mask them to exactly 0 so the
-        # kernel is exact for every transform/psc combination
-        gt = e_i.shape[0]
-        gid = pl.program_id(2) * gt + \
-            jax.lax.broadcasted_iota(jnp.int32, (gt, 1, 1), 0)
-        a = jnp.where(gid < n_genes, a, 0.0)
-    if transform == _SQRT and psc == 0.0 and not partial_semantics:
-        a_sq = jnp.abs(delta)                   # a^2 == |delta|: skip the mult
-    else:
-        a_sq = a * a
-    acc_ref[0] += jnp.sum(a, axis=0)
-    acc_ref[1] += jnp.sum(a_sq, axis=0)
-    acc_ref[2] += jnp.sum(a * b[:, :, None], axis=0)
-    acc_ref[3] += jnp.sum(b, axis=0)[:, None]
-    acc_ref[4] += jnp.sum(b * b, axis=0)[:, None]
-
-    @pl.when(k == nk - 1)
-    def _():
-        out_ref[...] = _corr_from_moments(
-            acc_ref[0], acc_ref[1], acc_ref[2], acc_ref[3], acc_ref[4],
-            float(n_genes))
-
-
-@functools.partial(jax.jit,
-                   static_argnames=("transform", "psc", "interpret",
-                                    "partial_semantics"))
-def _col_delta_cor_dense_pallas(emat: jax.Array, dmat: jax.Array,
-                                transform: int = _LINEAR,
-                                psc: float = 0.0,
-                                interpret: bool = False,
-                                partial_semantics: bool = False) -> jax.Array:
-    """Dense colDeltaCor on TPU. emat/dmat: (G, N) float32 -> (N, N).
-
-    Tile sizes measured fastest on v5e (TI=512/TC=16/GT=256: 33k cells/s
-    at G=2000 N=3072; larger tiles exceed the VMEM budget)."""
-    g, n = emat.shape
-    TI, TC, GT = 512, 16, 256
-    g_pad = ((g + GT - 1) // GT) * GT
-    n_pad = ((n + TI - 1) // TI) * TI
-    e = jnp.pad(emat.astype(jnp.float32), ((0, g_pad - g), (0, n_pad - n)))
-    d = jnp.pad(dmat.astype(jnp.float32), ((0, g_pad - g), (0, n_pad - n)))
-    e_t = e.T  # (n_pad, g_pad) center-cell rows
-    d_t = d.T
-
-    grid = (n_pad // TI, n_pad // TC, g_pad // GT)
-    out = pl.pallas_call(
-        functools.partial(_dense_kernel, transform=transform, psc=psc,
-                          tc=TC, n_genes=g, partial_semantics=partial_semantics,
-                          mask_pad=not _pad_is_exact(transform, psc,
-                                                     partial_semantics)),
-        interpret=interpret,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((GT, TI), lambda i, c, k: (k, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((TC, GT), lambda i, c, k: (c, k),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((TC, GT), lambda i, c, k: (c, k),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((TC, TI), lambda i, c, k: (c, i),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((n_pad, n_pad), jnp.float32),
-        scratch_shapes=[pltpu.VMEM((5, TC, TI), jnp.float32)],
-        cost_estimate=pl.CostEstimate(
-            flops=8 * n_pad * n_pad * g_pad,
-            bytes_accessed=4 * (n_pad // TI) * n_pad * g_pad,
-            transcendentals=n_pad * n_pad * g_pad if transform else 0,
-        ),
-    )(e, e_t, d_t)
-    return out[:n, :n]
-
-
-# Zero-padded genes perturb the moments when transform(0) != 0, i.e. for
-# sqrt/log10 with psc > 0 (each padded gene adds transform-of-zero to S1/S2).
-# When padding is not exact the kernel masks the padded gene rows in-VMEM
-# (mask_pad above), so one Pallas path serves every transform/psc.
-def _pad_is_exact(transform: int, psc: float,
-                  partial_semantics: bool = False) -> bool:
-    if transform == _LINEAR:
-        return True
-    if transform == _SQRT:
-        # partial semantics map |delta| < 1e-16 to exactly 0, so padded
-        # zero-genes contribute nothing for any psc
-        return psc == 0.0 or partial_semantics
-    return False  # log10: transform(0) = +-log10(psc) != 0 in general
-
-
-# ---------------------------------------------------------------------------
-# Dense variant: blocked XLA fallback (CPU & general psc)
+# Dense (full) variant: blocked XLA
 # ---------------------------------------------------------------------------
 
 def _dense_xla_rows(emat: jax.Array, e_ctr: jax.Array, d_ctr: jax.Array,
@@ -270,11 +142,9 @@ def _partial_impl(e_full: jax.Array, e_ctr: jax.Array, d_ctr: jax.Array,
     The kernel is bound by the HBM row-gather of e_full.  Work is tiled
     as flat (center cell, nt-neighbor chunk) row units so the gathered
     (block, nt, G) intermediate -- and the transform applied to it --
-    stays ~64 MB: at reference scale (20k cells, 1.75k sampled
-    neighbors, G=2k) the untiled form materialized ~0.9 GB (B, nn, G)
-    temporaries per block and ran ~10x below the bare-gather roofline.
-    bf16 source rows measured *slower* due to 4 KB gather granularity,
-    so everything stays float32.
+    stays ~64 MB; the untiled form would materialize a (B, nn, G)
+    temporary per block (~0.9 GB at 20k cells, 1.75k sampled neighbors,
+    G=2k).
     """
     m, g = e_ctr.shape
     nn = ixs.shape[1]
@@ -310,7 +180,6 @@ def _partial_impl(e_full: jax.Array, e_ctr: jax.Array, d_ctr: jax.Array,
 
 
 def col_delta_cor(emat, dmat, transform: str = "linear", psc: float = 0.0,
-                  use_pallas: Optional[bool] = None,
                   mesh: Optional[Mesh] = None) -> np.ndarray:
     """Dense colDeltaCor. emat/dmat: (genes, cells). Returns (cells, cells).
 
@@ -324,16 +193,7 @@ def col_delta_cor(emat, dmat, transform: str = "linear", psc: float = 0.0,
     dmat = jnp.array(dmat, dtype=jnp.float32)
     if mesh is not None:
         return col_delta_cor_dense_sharded(mesh, emat, dmat, transform, psc)
-    on_tpu = jax.default_backend() == "tpu"
-    if use_pallas is None:
-        use_pallas = on_tpu
-    if use_pallas:
-        # off-TPU the Pallas path runs in interpret mode (tests only)
-        out = _col_delta_cor_dense_pallas(emat, dmat, tcode, psc,
-                                          interpret=not on_tpu)
-    else:
-        out = _col_delta_cor_dense_xla(emat, dmat, tcode, psc)
-    return np.array(out)
+    return np.array(_col_delta_cor_dense_xla(emat, dmat, tcode, psc))
 
 
 def make_dense_sharded(mesh: Mesh, transform: str = "linear",
@@ -367,17 +227,6 @@ def col_delta_cor_dense_sharded(mesh: Mesh, emat, dmat,
     fn = make_dense_sharded(mesh, transform, psc)
     out = fn(e, e_ctr, d_ctr)
     return np.array(out[:n])
-
-
-# Note on an alternative evaluated at reference scale (20k x 2k,
-# nn=1750): computing the *dense* Pallas kernel over all N^2 pairs with
-# partial-kernel per-pair semantics and selecting the sampled entries
-# (take_along_axis) measured ~14 s vs ~11 s for the gather path -- the
-# dense kernel is VPU-compute-bound on 11x more pair work, so the gather
-# path stays the production route even where its HBM random-access cost
-# dominates.  partial_semantics support in the dense kernel is kept (and
-# tested) as the documented per-pair-quirk contract between the two
-# kernel families.
 
 
 def col_delta_cor_partial_compact_dev(emat, dmat, ixs,
@@ -460,10 +309,19 @@ def make_partial_sharded(mesh: Mesh, transform: str = "linear",
     )
 
 
-# Per-chip bytes of replicated expression above which the sharded
-# partial kernel switches to the ring schedule (expression sharded too).
-_REPLICATION_BYTES = int(os.environ.get("VELOCYTO_REPLICATION_BYTES",
-                                        4 << 30))
+# Replicated-expression budget per device for devices that report no
+# memory limit (the CPU backend).  Devices that do report one allow a
+# quarter of it: the replicated (N, G) matrix shares the device with
+# the (N, nn) neighbor/correlation state and the kernel's gather tiles.
+_REPLICATION_BYTES = 4 << 30
+
+
+def _replication_budget(mesh: Mesh) -> int:
+    """Bytes of replicated expression one device of `mesh` may hold
+    before the sharded partial kernel switches to the ring schedule."""
+    stats = mesh.devices.flat[0].memory_stats() or {}
+    limit = stats.get("bytes_limit")
+    return limit // 4 if limit else _REPLICATION_BYTES
 
 
 def col_delta_cor_partial_sharded_dev(mesh: Mesh, emat, dmat, ixs,
@@ -472,13 +330,13 @@ def col_delta_cor_partial_sharded_dev(mesh: Mesh, emat, dmat, ixs,
     """Multi-chip partial colDeltaCor: center cells (rows of ixs / output)
     sharded over the mesh "cells" axis, expression replicated.
     Collective-free: each shard gathers from the replicated expression
-    matrix, so scaling is embarrassingly parallel over ICI-connected chips.
-    When the replicated expression would exceed VELOCYTO_REPLICATION_BYTES
-    per chip, the ring schedule (expression sharded, ppermute rotation)
-    takes over.  Returns the compact (N, nn) form as a device array
-    (still sharded).
+    matrix, so scaling is embarrassingly parallel over the devices.
+    When the replicated expression would exceed the per-device budget
+    (:func:`_replication_budget`), the ring schedule (expression
+    sharded, ppermute rotation) takes over.  Returns the compact
+    (N, nn) form as a device array (still sharded).
     """
-    if np.asarray(emat).size * 4 > _REPLICATION_BYTES:
+    if np.asarray(emat).size * 4 > _replication_budget(mesh):
         return col_delta_cor_partial_ring_dev(mesh, emat, dmat, ixs,
                                               transform, psc)
     e_rows = jnp.array(emat, dtype=jnp.float32).T
@@ -515,7 +373,7 @@ def col_delta_cor_partial_sharded(mesh: Mesh, emat, dmat, ixs,
 # Phase 3): chip p at step s holds chunk (p + s) % P and evaluates exactly
 # the sampled pairs whose neighbor lives in that chunk.  Per-chip memory
 # is O(N/P * G); communication is the (P-1)-step ring of (N/P, G) chunks
-# riding ICI.
+# over the device interconnect.
 #
 # The neighbor indices are pre-grouped by owning chunk on the host (the
 # order of neighbors within a row is irrelevant to the per-pair moments),
@@ -642,20 +500,14 @@ def make_partial_ring(mesh: Mesh, shards: int, bmax: int, qwidth: int,
         out0 = jnp.zeros((shards, bmax, qwidth), jnp.float32)
         # the carry becomes device-varying once p enters the body; the
         # initial value must carry the same manual-axes annotation
-        if hasattr(jax.lax, "pcast"):
-            out0 = jax.lax.pcast(out0, (CELLS,), to="varying")
-        elif hasattr(jax.lax, "pvary"):          # older spelling
-            out0 = jax.lax.pvary(out0, (CELLS,))
+        out0 = jax.lax.pcast(out0, (CELLS,), to="varying")
 
         def body(carry, s):
             e_visit, out = carry
             v = jax.lax.rem(p + s, shards)
             # issue the rotation BEFORE the block-table compute: both
-            # read only e_visit, so XLA's async collective scheduler
-            # overlaps the ICI transfer with the step's compute (the
-            # transfer is <10% of the step at the modeled operating
-            # points -- see bench_scaling.analyze_multichip -- so the
-            # overlap fully hides it)
+            # read only e_visit, so XLA's async collective scheduler can
+            # overlap the transfer with the step's compute
             e_next = jax.lax.ppermute(e_visit, CELLS, perm)
             loc_v = jax.lax.dynamic_index_in_dim(qloc, v, axis=0,
                                                  keepdims=False)

@@ -4,7 +4,7 @@ The reference loops genes in Python and calls scipy optimizers per gene
 (reference: velocyto/estimation.py:173-366).  Every one of those
 optimizations is a (constrained) *quadratic* problem in 1 or 2 variables,
 so it has a closed form: we solve each exactly and vmap over genes, which
-turns ~20k sequential scipy solves into one fused TPU program.
+turns ~20k sequential scipy solves into one fused device program.
 
 Deviation note: scipy's bounded Brent / L-BFGS-B stop at ~1e-5 tolerance
 near the true minimizer; our closed forms return the exact constrained
@@ -246,9 +246,8 @@ def fit_slope_offset(Y, X, fixperc_q: bool = False):
 def _row_percentiles(M, qs):
     """np.percentile(M, qs, axis=1) (linear interpolation) with static
     qs: ONE row sort serves every requested percentile via static
-    column slicing.  (jnp.percentile's generic lowering proved
-    pathologically slow to execute on some remote TPU backends; this
-    explicit sort + static-gather form is the minimal program.)"""
+    column slicing, the minimal program for a static set of
+    percentiles."""
     s = jnp.sort(M, axis=1)
     n = M.shape[1]
     out = []

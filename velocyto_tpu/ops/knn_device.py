@@ -6,13 +6,11 @@ Motivation: the host-side balanced-kNN path (ops/knn.py) must pull the
 (N, sight) candidate-index matrix to the host for the exact f64 re-score
 and the greedy balancing loop -- ~105 MB at the reference's 20k-cell
 operating point (reference doc/tutorial/analysis.rst:109: k=500,
-b_sight=3000), which dominates wall time on a thin host link.  This
-module keeps the whole chain on device:
+b_sight=3000).  This module keeps the whole chain on device:
 
-  candidate pass (f32 blocked MXU distances, ops/knn.py semantics)
-    -> exact re-score in f64 (diff-form, elementwise; on TPU f64 is
-       software-emulated at ~1e-15 relative accuracy, on CPU it is
-       native IEEE)  [replaces the host numpy re-score]
+  candidate pass (f32 blocked matmul distances, ops/knn.py semantics)
+    -> exact re-score in f64 (diff-form, elementwise, native IEEE f64)
+       [replaces the host numpy re-score]
     -> lexicographic (distance, index) ordering  [sklearn tie-breaks]
     -> greedy degree-capped balancing as a speculative batched
        while_loop (reference velocyto/neighbors.py:11-140 -- decisions
@@ -40,18 +38,6 @@ import numpy as np
 from .knn import _candidate_plan, _knn_search_impl
 
 
-@functools.lru_cache(maxsize=1)
-def _f64_supported() -> bool:
-    """Whether explicitly-requested f64 survives on this backend (needs
-    jax_explicit_x64_dtypes=allow, set at package import but tolerated
-    to be absent on older JAX).  Without it the exact re-score silently
-    ran in f32; callers fall back to the host f64 path instead."""
-    try:
-        return jnp.asarray(np.zeros(1), jnp.float64).dtype == jnp.float64
-    except Exception:
-        return False
-
-
 class KnnGraphDev(NamedTuple):
     """Device-resident kNN graph state.
 
@@ -75,10 +61,9 @@ class KnnGraphDev(NamedTuple):
 def _rescore_f64_impl(x64: jax.Array, idx: jax.Array, block: int) -> jax.Array:
     """Exact f64 squared distances of gathered candidates, blocked.
 
-    Diff-form (sum((x_i - x_j)^2)) rather than GEMM-form: on TPU the
-    emulated f64 matmul is only ~1e-10 accurate while elementwise f64 is
-    ~1e-15, and the diff-form is exactly 0 for duplicate points, which
-    preserves sklearn-style tie groups.
+    Diff-form (sum((x_i - x_j)^2)) rather than GEMM-form: the diff-form
+    is exactly 0 for duplicate points, which preserves sklearn-style tie
+    groups, and carries no cancellation error from the norm expansion.
     """
     n, d = x64.shape
     k = idx.shape[1]
@@ -118,12 +103,6 @@ def knn_search_dev(data: np.ndarray, k: int, metric: str = "euclidean",
     """
     n = data.shape[0]
     k = min(k, n)
-    if not _f64_supported():
-        # exactness over residency: run the validated host path and
-        # place its results on the default device
-        from .knn import knn_search
-        dist_h, idx_h = knn_search(data, k, metric=metric)
-        return (jnp.asarray(dist_h), jnp.asarray(idx_h.astype(np.int32)))
     x64h = np.asarray(data, dtype=np.float64)
     if metric == "correlation":
         x64h = x64h - x64h.mean(axis=1, keepdims=True)
@@ -416,12 +395,12 @@ def _smooth_rows_impl(data_rows: jax.Array, nbr_idx: jax.Array,
     """out[i] = sum_k w[i,k] * data_rows[idx[i,k]] -- the smoothing
     convolution over cells-as-rows.
 
-    Computed as blocked scatter-to-dense + MXU matmul: each row block
+    Computed as blocked scatter-to-dense + matmul: each row block
     scatters its (B, K) weights into a dense (B, N) slab and one matmul
     contracts it with the data.  A K-wide gather+einsum would move
-    N*K*G*4 bytes through the VPU gather path (~80 GB and ~18 s at the
-    20k x 500-neighbor x 2k-gene operating point); the dense slab costs
-    B*N scratch and turns the whole contraction into MXU work (~0.5 s).
+    N*K*G*4 bytes (~80 GB at the 20k x 500-neighbor x 2k-gene operating
+    point); the dense slab costs B*N scratch and turns the whole
+    contraction into one matmul per block.
     """
     n, gdim = data_rows.shape
     kk = nbr_idx.shape[1]
@@ -458,10 +437,7 @@ def smooth_dev_multi(data_cols_list, nbr_idx: jax.Array,
     The convolution streams the (B, N) weight slab through HBM; that
     cost is per PASS, not per matrix, so one matmul against the
     gene-concatenated data amortizes it across all inputs (Sx+Ux drop
-    from 2 slabs to 1).  Measured r5 at 50k cells x 501 neighbors x
-    4000 concatenated genes: 1.02 s -- and still faster than a tiled
-    gather+einsum formulation of the same contraction (1.46 s), so the
-    slab stays."""
+    from 2 slabs to 1)."""
     gs = [d.shape[0] for d in data_cols_list]
     stacked = jnp.concatenate([d.T for d in data_cols_list], axis=1)
     out = _smooth_rows_impl(stacked, nbr_idx, nbr_w)

@@ -2,9 +2,9 @@
 
 The reference smooths with a sparse weight matrix product
 (reference: velocyto/neighbors.py:385-423, analysis.py:1006-1016).
-On TPU the kNN structure (<= K neighbors per cell) makes a compact
-gather + weighted-sum kernel the natural fit: it is a single fused
-gather/einsum, memory-bound, and shards trivially over the cells axis.
+On the device the compact (N, K) neighbor form (<= K neighbors per cell)
+is contracted blocked over cells (see ops.knn_device._smooth_rows_impl),
+which shards trivially over the cells axis.
 
 The scipy.sparse-facing helpers keep API parity for host-side use.
 """
@@ -49,7 +49,7 @@ def _convolve_compact_impl(data_rows: jax.Array, nbr_idx: jax.Array,
 
     data_rows: (N, G); nbr_idx/nbr_w: (N, K).  Returns (N, G).
     One kernel shared with ops.knn_device (blocked scatter-to-dense +
-    MXU matmul -- see _smooth_rows_impl there for the rationale)."""
+    matmul -- see _smooth_rows_impl there for the rationale)."""
     from .knn_device import _smooth_rows_impl
     return _smooth_rows_impl(data_rows, nbr_idx, nbr_w, block=block)
 
@@ -61,10 +61,8 @@ def _convolve_dense_impl(data_rows: jax.Array, w_dense: jax.Array
                       precision=jax.lax.Precision.HIGHEST)
 
 
-# Below this many cells, a dense (N, N) weight matmul beats the gather
-# path outright: it rides the MXU as one dot (the weight matrix is tiny
-# relative to MXU throughput), while a K-wide gather materializes
-# (block, K, G) scratch and lowers to slow dynamic-gathers.
+# Below this many cells, one dense (N, N) weight matmul replaces the
+# blocked path outright (the weight matrix is small at these sizes).
 _DENSE_N_MAX = 8192
 
 

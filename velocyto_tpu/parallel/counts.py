@@ -1,12 +1,12 @@
 """Distributed count-matrix merge.
 
 The reference's counting is single-process and simply concatenates cell
-batches (velocyto/commands/_run.py:284-297).  On a TPU slice, feeder
+batches (velocyto/commands/_run.py:284-297).  Across devices, feeder
 hosts count disjoint read shards of the SAME cells (e.g. one BAM chunk
 per host of a position-split file, or lane-split FASTQ-derived BAMs):
 their per-(gene, cell) partial counts must be summed.  This module does
-that merge as a `shard_map` psum over the mesh - the collective rides
-ICI within a slice and DCN across hosts.
+that merge as a `shard_map` psum over the mesh, within a host and
+across hosts.
 
 For the complementary layout - hosts own disjoint CELL ranges of a
 cell-sorted BAM - no collective is needed: columns concatenate, which is

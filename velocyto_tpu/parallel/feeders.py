@@ -2,13 +2,12 @@
 
 The reference's counting loop is single-threaded by design (its `pcount`
 is a NotImplementedError stub, reference counter.py:1256-1265).  Here the
-TPU-native scale-out layout (SURVEY "Parallelism inventory"): the valid
+scale-out layout (SURVEY "Parallelism inventory"): the valid
 barcode set is split into contiguous ranges; one FEEDER per range decodes
 the cell-sorted BAM with the native reader and counts only its own cells.
 Because every feeder's non-owned columns are zero, the global matrix is
 the elementwise SUM of the feeder partials -- which is exactly
-`merge_feeder_counts`' shard_map psum over the device mesh (ICI within a
-slice, DCN across hosts).
+`merge_feeder_counts`' shard_map psum over the device mesh.
 
 ONE preparation, N feeders: the GTF parse and the intron-validation
 markup pass over the BAM run exactly once (in the caller or here), and

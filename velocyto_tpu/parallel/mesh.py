@@ -1,12 +1,12 @@
 """Device mesh and sharding utilities.
 
 The estimation pipeline shards along the *cells* axis (the data axis of
-single-cell data) and keeps genes replicated; this is the TPU-native
+single-cell data) and keeps genes replicated; this is the device-mesh
 replacement for the reference's single-node OpenMP parallelism over cells
 (reference: velocyto/speedboosted.pyx prange loops).
 
 Axis names:
-  - "cells": data-parallel axis, sharded across chips/hosts over ICI/DCN.
+  - "cells": data-parallel axis, sharded across devices and hosts.
   - "genes": model-ish axis, available for very wide gene panels.
 """
 from __future__ import annotations
@@ -66,9 +66,9 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
                            process_id: Optional[int] = None) -> None:
     """Initialize jax.distributed for multi-host runs.
 
-    On a single host this is a no-op.  On a multi-host slice this must be
-    called before any jax computation; collectives then ride ICI within a
-    slice and DCN across slices.
+    On a single host this is a no-op.  On several hosts this must be
+    called before any jax computation, with the coordinator address,
+    process count and this process's id.
     """
     if num_processes is None or num_processes <= 1:
         return

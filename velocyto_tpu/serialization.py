@@ -11,7 +11,6 @@ import pickle
 import zlib
 from typing import Tuple, Type
 
-import h5py
 import numpy as np
 
 
@@ -30,6 +29,7 @@ def dump_hdf5(obj: object, filename: str,
     """Dump all attributes of a python object to hdf5."""
     if os.path.isfile(filename):
         os.remove(filename)
+    import h5py  # optional: only loom/hdf5 I/O needs it
     with h5py.File(filename, "w") as f:
         for k in obj.__dict__.keys():
             attribute = getattr(obj, k)
@@ -61,6 +61,7 @@ def dump_hdf5(obj: object, filename: str,
 def load_hdf5(filename: str, obj_class: Type[object]) -> object:
     """Recreate an object of type obj_class from a dump_hdf5 snapshot."""
     obj = obj_class.__new__(obj_class)
+    import h5py  # optional: only loom/hdf5 I/O needs it
     with h5py.File(filename, "r") as f:
         for k in f.keys():
             if k.startswith("&"):
